@@ -1,8 +1,6 @@
 """The backend argument must never SILENTLY select the per-ray oracle
-(the 2-3-orders-of-magnitude cliff render.py guards loudly): "pallas" is
-an alias of "sweep" (the fused Pallas kernels are the sweep backend's
-TPU implementation), and unknown values raise (VERDICT r4 weak 3)."""
-import numpy as np
+(the slow path render.py guards loudly): unknown values raise, including
+"pallas", which named a kernel that no longer exists."""
 import pytest
 
 from volumetricrenderer_tpu.config import get_preset
@@ -22,13 +20,11 @@ def _setup():
     return p, grid, cam
 
 
-def test_pallas_is_an_alias_of_sweep():
+def test_pallas_backend_raises():
     p, grid, cam = _setup()
-    a = render_image(grid, cam, p.render, p.medium, p.light,
-                     backend="sweep")
-    b = render_image(grid, cam, p.render, p.medium, p.light,
+    with pytest.raises(ValueError, match="unknown backend"):
+        render_image(grid, cam, p.render, p.medium, p.light,
                      backend="pallas")
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_unknown_backend_raises():
@@ -38,14 +34,10 @@ def test_unknown_backend_raises():
                      backend="palas")  # typo must not mean 'oracle'
 
 
-def test_cli_maps_pallas_choice_to_sweep():
-    from volumetricrenderer_tpu.cli import _resolve_preset
+def test_cli_rejects_pallas_choice(capsys):
+    from volumetricrenderer_tpu.cli import main
 
-    class Args:
-        preset = "config1"
-        width = height = volume_size = None
-        backend = "pallas"
-
-    args = Args()
-    _resolve_preset(args)
-    assert args.backend == "sweep"
+    with pytest.raises(SystemExit) as e:
+        main(["render", "--backend", "pallas"])
+    assert e.value.code == 2  # argparse: invalid choice
+    assert "invalid choice" in capsys.readouterr().err

@@ -34,94 +34,3 @@ def test_bf16_sweep_close_to_f32():
 def test_bf16_config_dtype():
     cfg = RenderConfig(dtype="bfloat16")
     assert cfg.jnp_dtype == jnp.bfloat16
-
-
-def test_bf16_in_pallas_gate():
-    """Round 3: the fused single-channel kernels stream bf16 (f32
-    accumulators); the gate must accept it (VERDICT r2 item 3)."""
-    from volumetricrenderer_tpu.kernels.sweep_pallas import supported
-    cfg = RenderConfig(emission=True, quadrature="sliced",
-                       dtype="bfloat16")
-    grid = cloud_volume(16, seed=7)
-    cam = make_camera(CameraConfig(width=48, height=32))
-    plan = plan_sweep(cam, grid.shape, cfg)
-    assert supported(plan, cfg, MED, None, None, 3, 16)
-    # the 4-channel reference kernels stream bf16 too (round 3)
-    ref_med = MediumConfig()
-    assert supported(plan, cfg, ref_med, None, None, 4, 16)
-
-
-def test_bf16_pallas_parity_vs_jnp():
-    """Fused kernels at bf16 (interpret mode) vs the jnp sweep at bf16 —
-    same streams, same accumulators, bf16-appropriate tolerance; and the
-    gradient path runs and stays finite with f32-accumulated dG."""
-    import jax
-    from volumetricrenderer_tpu.kernels import sweep_pallas as sp
-    from volumetricrenderer_tpu.ops.sweep import _sweep_base
-    cfg = RenderConfig(emission=True, quadrature="sliced",
-                       dtype="bfloat16")
-    grid = cloud_volume(16, seed=7)
-    cam = make_camera(CameraConfig(width=48, height=32))
-    plan = plan_sweep(cam, grid.shape, cfg)
-    gperm = jnp.transpose(grid, plan.perm)
-    ref = _sweep_base(gperm, None, plan.slice_z, plan.v_grid, plan.u_grid,
-                      plan.seglen, plan, cfg, MED, None, None)
-    got = sp.sweep_base_pallas(gperm, plan, cfg, MED, None,
-                               interpret=True)
-    for x, y, n in zip(got, ref, ("acc", "trans", "wsum", "hit")):
-        np.testing.assert_allclose(np.asarray(x), np.asarray(y),
-                                   rtol=2e-2, atol=2e-2, err_msg=n)
-
-    def loss(g):
-        maps = sp.sweep_base_pallas(g, plan, cfg, MED, None,
-                                    interpret=True)
-        return jnp.sum(maps[1].astype(jnp.float32) ** 2
-                       + maps[2].astype(jnp.float32) ** 2)
-
-    dg = jax.grad(loss)(gperm)
-    assert dg.dtype == gperm.dtype
-    assert np.isfinite(np.asarray(dg, dtype=np.float32)).all()
-    assert float(jnp.abs(dg).max()) > 0
-
-
-def test_bf16_reference_kernels_parity():
-    """4-channel reference-combine kernels at bf16 (interpret) vs the jnp
-    sweep at bf16, with a finite gradient through the bf16 scatter."""
-    import jax
-    from volumetricrenderer_tpu.config import VolumeConfig, \
-        NoiseChannelConfig
-    from volumetricrenderer_tpu.kernels import sweep_pallas as sp
-    from volumetricrenderer_tpu.models.scene import build_volume
-    from volumetricrenderer_tpu.ops.integrate import reference_media_scroll
-    from volumetricrenderer_tpu.ops.sweep import _sweep_base
-    cfg = RenderConfig(emission=True, quadrature="sliced",
-                       dtype="bfloat16")
-    med = MediumConfig(density=2.0)
-    grid = build_volume(VolumeConfig(size=16, channels=(
-        NoiseChannelConfig("perlin", 0.21, 1),
-        NoiseChannelConfig("perlin", 0.15, 2),
-        NoiseChannelConfig("simplex", 0.18, 3),
-        NoiseChannelConfig("cellular", 0.12, 4))))
-    cam = make_camera(CameraConfig(eye=(2.6, 2.1, 2.9), width=48,
-                                   height=32))
-    plan = plan_sweep(cam, grid.shape, cfg)
-    assert sp.supported(plan, cfg, med, None, None, 4, 16)
-    scroll = reference_media_scroll(0.7)
-    gperm = jnp.transpose(grid, plan.perm + (3,))
-    ref = _sweep_base(gperm, None, plan.slice_z, plan.v_grid, plan.u_grid,
-                      plan.seglen, plan, cfg, med, None, scroll)
-    got = sp.sweep_base_pallas(gperm, plan, cfg, med, None, scroll=scroll,
-                               interpret=True)
-    for x, y, n in zip(got, ref, ("acc", "trans", "wsum", "hit")):
-        np.testing.assert_allclose(np.asarray(x), np.asarray(y),
-                                   rtol=2e-2, atol=2e-2, err_msg=n)
-
-    def loss(g):
-        maps = sp.sweep_base_pallas(g, plan, cfg, med, None, scroll=scroll,
-                                    interpret=True)
-        return jnp.sum(maps[1].astype(jnp.float32) ** 2
-                       + maps[2].astype(jnp.float32) ** 2)
-
-    dg = jax.grad(loss)(gperm)
-    assert np.isfinite(np.asarray(dg, dtype=np.float32)).all()
-    assert float(jnp.abs(dg).max()) > 0

@@ -1,5 +1,5 @@
 """Light-transmittance volume sweep (ops/lighting.py) — closed forms,
-direct-march cross-check, and end-to-end shading parity between the MXU
+direct-march cross-check, and end-to-end shading parity between the
 sweep and the per-ray oracle.
 """
 import dataclasses

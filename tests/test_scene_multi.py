@@ -72,7 +72,7 @@ def test_bake_voxel_aligned_translation_exact():
 
 
 def test_render_scene_sweep_matches_oracle():
-    """End-to-end: two-volume scene, sweep path (bake + MXU sweep) vs the
+    """End-to-end: two-volume scene, sweep path (bake + slice sweep) vs the
     per-ray sliced oracle with exact per-volume fields. Voxel-aligned
     translations keep the bake exact on the lattice; volumes with zero
     boundary density (radial falloff) avoid the one-voxel smear the bake

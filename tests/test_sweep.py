@@ -46,7 +46,15 @@ CAMERAS = {
     "diag-x": CameraConfig(eye=(3.2, 1.2, 1.5), width=24, height=16),
     "diag-y": CameraConfig(eye=(0.8, -3.0, 0.9), width=24, height=16),
     "corner": CameraConfig(eye=(3.0, 3.0, 3.0), width=24, height=16),
+    # One eye per dominant sweep axis and sign: (axis, sign) in the name.
+    "x-neg": CameraConfig(eye=(3.0, 0.4, 0.3), width=24, height=16),
+    "x-pos": CameraConfig(eye=(-3.0, 0.4, 0.3), width=24, height=16),
+    "y-neg": CameraConfig(eye=(0.3, 3.0, 0.4), width=24, height=16),
+    "z-neg": CameraConfig(eye=(0.4, 0.3, 3.0), width=24, height=16),
+    "z-pos": CameraConfig(eye=(0.4, 0.3, -3.0), width=24, height=16),
 }
+AXIS_SIGN = {"x-neg": (0, -1), "x-pos": (0, 1), "y-neg": (1, -1),
+             "z-neg": (2, -1), "z-pos": (2, 1)}
 
 
 def test_resample_matrix_matches_trilinear():
@@ -364,3 +372,18 @@ def test_tap_weights_tent_equals_clipped_two_tap():
                                                            tile)),
                                    np.asarray(ref), atol=1e-6,
                                    err_msg=f"n={n} off={off}")
+
+
+def test_plan_signature_has_no_kernel_windows():
+    """The jit signature is the plan's static geometry and warp tiling
+    only: two cameras with equal geometry share it."""
+    from volumetricrenderer_tpu.ops.sweep import plan_signature
+
+    cfg = RenderConfig(emission=True)
+    plan = plan_sweep(make_camera(CAMERAS["corner"]), (8, 8, 8), cfg)
+    sig = plan_signature(plan)
+    assert sig == (plan.axis, plan.sign, plan.perm, plan.base_shape,
+                   plan.slice_z.shape[0], plan.warp_band, plan.warp_blk,
+                   plan.identity_warp, plan.pix_band, plan.pix_blk)
+    assert not any(hasattr(plan, f) for f in
+                   ("row_window", "col_window", "scatter_window"))

@@ -174,19 +174,6 @@ def test_sharded_subvoxel_quadrature_grads(setup):
     np.testing.assert_allclose(g1, g2, rtol=1e-3, atol=1e-3 * scale)
 
 
-def test_sharded_subvoxel_pallas_interpret(setup):
-    """The fused kernels under the mesh at slices != depth: each device
-    sweeps its pre-lerped local stack at the stack's own centers."""
-    grid, cfg, medium, cam, _ = setup
-    plan = plan_sweep(cam, grid.shape, cfg, n_slices=8)
-    mesh = make_mesh(data=1, slab=8)
-    want = sweep_render(grid, plan, cfg, medium)
-    got = sweep_render_sharded(grid, plan, mesh, cfg, medium,
-                               use_pallas=True, pallas_interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-4, atol=2e-4)
-
-
 def test_sharded_subvoxel_reference_combine(setup):
     """n_slices != depth with the 4-channel reference combine under the
     mesh (the chan-slab pre-lerp already supported arbitrary S; the
@@ -257,15 +244,16 @@ def test_sharded_light_volume_grads(setup):
     assert np.abs(np.asarray(l2)).max() > 0  # light grad is nonzero
 
 
-def test_sharded_light_volume_subvoxel_pallas(setup):
-    """Shadows + sub-voxel quadrature + fused kernels under the mesh —
-    the full config-4/config-5 combination in one (interpret mode)."""
+@pytest.mark.parametrize("shape", [(1, 8), (2, 4)])
+def test_sharded_light_volume_subvoxel(setup, shape):
+    """Shadows + sub-voxel quadrature under the mesh — the full
+    config-4/config-5 combination: each device shades its slices from a
+    pre-lerped local light stack."""
     grid, cfg, medium, light, lv, plan = _shadow_setup(setup, n_slices=8)
-    mesh = make_mesh(data=1, slab=8)
+    mesh = make_mesh(data=shape[0], slab=shape[1])
     want = sweep_render(grid, plan, cfg, medium, light, light_volume=lv)
     got = sweep_render_sharded(grid, plan, mesh, cfg, medium, light,
-                               light_volume=lv, use_pallas=True,
-                               pallas_interpret=True)
+                               light_volume=lv)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-4, atol=2e-4)
 

@@ -154,6 +154,19 @@ def test_checkpoint_roundtrip(tmp_path, rng):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b))
 
 
+def test_compile_and_time():
+    """Compile seconds come apart from the steady per-call time, and the
+    returned executable and result are the function's."""
+    import jax.numpy as jnp
+
+    from volumetricrenderer_tpu.utils.clock import compile_and_time
+    compiled, out, compile_s, per_call = compile_and_time(
+        lambda x: jnp.sum(x * 2), jnp.ones(16), iters=2)
+    assert float(out) == 32.0
+    assert float(compiled(jnp.ones(16))) == 32.0
+    assert compile_s > 0 and per_call > 0
+
+
 def test_fit_resume_matches_uninterrupted(tmp_path):
     """Kill-and-resume parity: 4 steps + resume to 8 == straight 8 steps
     (VERDICT round 1 item 8)."""

@@ -1,16 +1,15 @@
 """Config-5 rehearsal: run the sharded sweep train step on the virtual
 8-device CPU mesh across mesh shapes and record per-shape timing + status
-to a JSON artifact (VERDICT round 1 item 5).
+to a JSON artifact.
 
-CPU timings do NOT model ICI bandwidth — the artifact's purpose is (a)
-proof the full sharded train step compiles and executes at a non-trivial
-size on every mesh shape, and (b) a relative sanity check that adding
-slab/data ways does not explode step time (collective overhead stays
-bounded). Real scaling numbers require a pod (BASELINE: >=90% linear
-1->4 hosts on v5p).
+CPU timings model no interconnect and no device speed — the artifact's
+purpose is (a) proof that the full sharded train step compiles and runs
+at a non-trivial size on every mesh shape, and (b) a relative sanity
+check that adding slab/data ways does not explode step time (collective
+overhead stays bounded). Device scaling numbers need the cards.
 
 Usage: python tools/scaling_rehearsal.py  (env: V=128 IMG=512 STEPS=2
-OUT=SCALING_r2.json)
+OUT=scaling_rehearsal.json)
 """
 import json
 import os
@@ -40,7 +39,7 @@ from volumetricrenderer_tpu.parallel.sweep_sharded import (  # noqa: E402
 V = int(os.environ.get("V", 128))
 IMG = int(os.environ.get("IMG", 512))
 STEPS = int(os.environ.get("STEPS", 2))
-OUT = os.environ.get("OUT", "SCALING_r4.json")
+OUT = os.environ.get("OUT", "scaling_rehearsal.json")
 SHAPES = [(8, 1), (4, 2), (2, 4), (1, 8)]
 
 
@@ -61,7 +60,7 @@ def main():
         mesh = make_mesh(data=data, slab=slab)
         # fwd-only render per shape: attributes any train-step asymmetry
         # between the forward sweep/composite/warp and the backward pass
-        # (the r3 slab=8-vs-data=8 anomaly, VERDICT r3 weak 5).
+        # (e.g. a slab-heavy vs data-heavy asymmetry).
         fwd = jax.jit(lambda g, m=mesh: sweep_render_sharded(
             g, plan, m, cfg, medium))
         t0 = time.perf_counter()

@@ -1,12 +1,12 @@
-"""volumetricrenderer_tpu — a TPU-native differentiable volumetric renderer.
+"""volumetricrenderer_tpu — a differentiable volumetric renderer.
 
-A from-scratch JAX/Pallas framework with the capabilities of the reference
+A from-scratch JAX framework with the capabilities of the reference
 Vulkan renderer (Raspy-Py/VolumetricRenderer): procedural-noise density
 volumes, camera ray generation, fixed-step emission-absorption ray marching
 with trilinear 3D sampling, Beer-Lambert compositing — plus, beyond the
 reference: full differentiability (voxel gradients), directional lighting
 with shadow marches, transmittance early exit, multi-device sharding over
-TPU meshes, checkpointing, and a batch/animation CLI in place of the
+device meshes, checkpointing, and a batch/animation CLI in place of the
 interactive window.
 """
 

@@ -1,4 +1,4 @@
-"""Configuration system for the TPU volumetric renderer.
+"""Configuration system for the volumetric renderer.
 
 The reference has no runtime config at all — every knob is a hard-coded
 constant (window 1280x720 at VulkanContext.cpp:24, MAX_FRAMES_IN_FLIGHT=2 at
@@ -95,10 +95,9 @@ class RenderConfig:
     #   "fixed":  per-ray fixed steps (frag.glsl:42-46 parity; gather-bound,
     #             served by ops/integrate.render_rays).
     #   "sliced": slice-plane crossings with per-ray segment lengths (the
-    #             MXU slice-sweep, ops/sweep.py; oracle
+    #             slice-sweep, ops/sweep.py; oracle
     #             ops/integrate.render_rays_sliced). Same integral,
-    #             different discretization — and ~3 orders of magnitude
-    #             faster on TPU.
+    #             different discretization.
     quadrature: str = "fixed"
     # Base-grid oversampling for the sweep's intermediate image.
     sweep_supersample: float = 1.5

@@ -60,7 +60,7 @@ def fit_grid(
     steps counts total steps, so a resumed run executes steps-start_step
     more and matches an uninterrupted run exactly (Adam state included).
 
-    With quadrature="sliced" the loss differentiates through the MXU
+    With quadrature="sliced" the loss differentiates through the
     slice-sweep (ops/sweep.py) — the production path; "fixed" keeps the
     reference-parity gather integrator."""
     target = jnp.asarray(target_rgb, jnp.float32)

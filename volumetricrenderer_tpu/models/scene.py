@@ -103,9 +103,9 @@ def translate_w2l(tx, ty, tz):
 
 def bake_scene(volumes, size, cfg):
     """Resample a multi-volume scene onto one shared (size^3) grid over the
-    config box — the TPU-first fast path for multi-volume rendering: one
+    config box — the fast path for multi-volume rendering: one
     trilinear bake per scene change, then every frame runs the full-speed
-    single-grid MXU sweep (ops/sweep.py). Densities of overlapping volumes
+    single-grid slice sweep (ops/sweep.py). Densities of overlapping volumes
     add; positions outside a volume's own box contribute zero (matching
     ops/integrate.scene_sigma). Exact when transforms are voxel-aligned
     translations at equal resolution; otherwise one extra trilinear filter

@@ -5,8 +5,8 @@ The reference has no explicit ray generator: it rasterizes a unit cube
 (TestMain.cpp:222-228, shaders/vert.glsl:19-20) purely so the fragment
 shader fires per covered pixel, then reconstructs the ray as
 normalize(fragPos - cameraPos) in box-local space (shaders/frag.glsl:36-38).
-A rasterizer needs proxy geometry to trigger fragments; a TPU does not —
-we generate camera rays analytically per pixel, which covers exactly the
+A rasterizer needs proxy geometry to trigger fragments; a ray program does
+not — we generate camera rays analytically per pixel, which covers exactly the
 same rays (every cube-covering pixel's ray) plus the misses, which the AABB
 test rejects.
 

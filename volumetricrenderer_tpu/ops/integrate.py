@@ -264,7 +264,7 @@ def render_rays_sliced(
 
     Marches each ray by sampling at the sweep plan's slice-plane crossings
     with per-ray segment lengths — numerically the same integral the
-    MXU slice-sweep computes, expressed per ray so it can be checked on
+    slice-sweep computes, expressed per ray so it can be checked on
     CPU against closed forms and so `sweep_render` can be allclose-tested
     end to end (slow path; tests only).
     """

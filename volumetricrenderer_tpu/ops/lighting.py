@@ -1,4 +1,4 @@
-"""Light-transmittance volume via a directional sweep — the TPU-native
+"""Light-transmittance volume via a directional sweep — the
 replacement for the per-sample nested shadow march (BASELINE config 4).
 
 The reference has no lighting at all (frag.glsl is absorption-only); the
@@ -9,14 +9,14 @@ standard light-propagation factorization instead (half-angle slicing
 family): sweep the volume's slices from the light side inward, carrying
 accumulated optical depth and re-aligning it each step with the light's
 constant shear — two *constant* resample matrices per step, i.e. O(volume)
-MXU work total, independent of ray count:
+matmul work total, independent of ray count:
 
     tau_s = Shift(tau_{s-1} + sigma_{s-1} * dl),     tau_0 = 0
     L_s   = exp(-density * tau_s)
 
 `Shift` resamples by the light's inter-slice offset with zero weight
 outside the box (no medium there). L is a per-voxel transmittance grid;
-both render paths (MXU sweep and the per-ray oracle) then *sample* the
+both render paths (the slice sweep and the per-ray oracle) then *sample* the
 same L, so shading stays exactly comparable (render_rays_sliced /
 sweep_render take it as `light_volume`).
 
@@ -35,6 +35,7 @@ from .sweep import _axes_for
 __all__ = ["light_transmittance_volume"]
 
 
+@jax.named_scope("light_sweep")
 def light_transmittance_volume(
     grid,
     light: LightConfig,

@@ -7,7 +7,7 @@ per-channel scaled + scrolled coordinates combined as
 per-voxel sigma field — the light-propagation sweep (ops/lighting.py) and
 baked multi-volume scenes (render.render_scene) — get it by evaluating
 that expression once at every voxel center: three banded-matrix resamples
-per channel (pure MXU work, ops/resample.py), then the combine.
+per channel (dense matmuls, ops/resample.py), then the combine.
 
 Exact at voxel centers; consumers then interpolate the *combined* field
 (interpolate-after-combine) where the reference interpolates each channel

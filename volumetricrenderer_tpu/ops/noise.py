@@ -1,4 +1,4 @@
-"""Procedural 3D noise in pure JAX — the TPU-native replacement for the
+"""Procedural 3D noise in pure JAX — the replacement for the
 reference's vendored FastNoise2 C++/SIMD library (TestMain.cpp:43-62 uses
 CellularDistance, Perlin, Simplex via FastNoise::New<...>/GenUniformGrid3D).
 
@@ -58,8 +58,8 @@ def _hash_to_unit(h):
 def _grad_dot(ix, iy, iz, dx, dy, dz, seed):
     """Dot product of the hashed lattice gradient with offset (dx,dy,dz).
 
-    Uses arithmetic selection instead of a table gather so the whole thing
-    stays on the VPU (gathers are slow on TPU)."""
+    Uses arithmetic selection instead of a table gather, so the whole
+    thing fuses into elementwise code."""
     h = _hash3(ix, iy, iz, seed)
     # Pick gradient component signs/zeros from hash bits — equivalent to
     # indexing _GRAD3 but branch/gather-free (Perlin's bit trick).

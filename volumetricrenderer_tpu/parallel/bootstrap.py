@@ -3,13 +3,13 @@ retry (SURVEY.md §5.3/§5.8: the reference is single-process/single-GPU;
 its bring-up analogue is the fixed-order Vulkan Context creation,
 VulkanContext.cpp:26-32).
 
-Config 5 (512^3, v5p-16 multi-host) launches one process per host; every
-process calls `initialize_distributed()` before touching devices. The
-function is a no-op for single-process runs (the common dev case and every
-test), autodetects TPU-pod metadata when launched by a cluster runtime
-(jax.distributed's own autodetection), and retries the coordinator
-handshake — process 0 may come up seconds after the rest on a preemptible
-pod.
+A multi-host run (config 5 beyond one host) launches one process per host;
+every process calls `initialize_distributed()` before touching devices.
+The function is a no-op for single-process runs (the common dev case, one
+host driving all of its cards, and every test), defers to
+jax.distributed's own autodetection when a cluster runtime launched it,
+and retries the coordinator handshake — process 0 may come up seconds
+after the rest.
 """
 from __future__ import annotations
 
@@ -44,9 +44,9 @@ def initialize_distributed(
 
     Arguments default to the standard env vars (JAX_COORDINATOR_ADDRESS,
     JAX_NUM_PROCESSES, JAX_PROCESS_ID) so launchers can configure purely
-    through the environment. On a TPU pod slice all three may be None —
-    set VOLT_DISTRIBUTED=1 (or pass no args but export it) to opt in, and
-    jax.distributed.initialize() autodetects from the metadata server.
+    through the environment. Under a cluster runtime that jax.distributed
+    detects by itself, all three may be None — set VOLT_DISTRIBUTED=1 to
+    opt in, and jax.distributed.initialize() autodetects them.
     Without the opt-in, an unconfigured environment is treated as a
     single-process run (the common dev case) and no initialize happens.
 

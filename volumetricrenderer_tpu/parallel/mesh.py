@@ -23,10 +23,13 @@ def make_mesh(data: Optional[int] = None, slab: int = 1,
               devices: Optional[Sequence[jax.Device]] = None) -> Mesh:
     """Create a (data, slab) mesh. Defaults to all devices on the data axis.
 
-    Multi-host note: pass jax.devices() after jax.distributed.initialize();
-    the data axis should span hosts (DCN-tolerant — ray work is
-    embarrassingly parallel) while slab should stay within a slice so the
-    carry exchange rides ICI."""
+    The mesh is a plain reshape of the device list: on a host whose
+    cards are joined all to all (NVLink) every pairing costs the same,
+    so the axis sizes follow the algorithm alone. Across hosts, pass
+    jax.devices() after jax.distributed.initialize() and keep "slab"
+    within a host, where the slab composite's ppermute exchanges run on
+    the fastest links; ray work over "data" is embarrassingly parallel
+    and tolerates the slower network between hosts."""
     devs = list(devices) if devices is not None else jax.devices()
     if data is None:
         data = len(devs) // slab

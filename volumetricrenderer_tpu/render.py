@@ -2,7 +2,7 @@
 
 The reference's Renderer (VulkanRenderer.h:58-100) is an imperative frame
 engine: Init, AddRenderPass, per-frame Enqueue/Begin/End over a swapchain.
-The TPU-native equivalent is functional: `render(...)` is a jitted pure
+The equivalent here is functional: `render(...)` is a jitted pure
 function from (grid, camera, configs, time) to an RGBA image; "frames in
 flight" fall out of XLA's async dispatch (launch N renders back to back and
 block on results), and the swapchain is `utils.image.write_png`.
@@ -10,9 +10,8 @@ block on results), and the swapchain is `utils.image.write_png`.
 Quadratures and backends (RenderConfig.quadrature selects the math,
 `backend` selects the implementation):
 
-  quadrature "sliced" (the TPU-native path, default for the staged
-  BASELINE configs):
-    * "sweep":     MXU slice-sweep (ops/sweep.py) — banded-matmul
+  quadrature "sliced" (default for the staged BASELINE configs):
+    * "sweep":     slice-sweep (ops/sweep.py) — banded-matmul
                    resampling, no gathers. The fast path.
     * "reference": per-ray jnp oracle (ops/integrate.render_rays_sliced).
   quadrature "fixed" (frag.glsl:42-46 step-parity):
@@ -20,12 +19,6 @@ Quadratures and backends (RenderConfig.quadrature selects the math,
   backend "auto" picks sweep for sliced (falling back to fixed/reference
   if the camera geometry does not admit a sweep axis) and reference for
   fixed.
-
-There is deliberately no per-ray fixed-quadrature Pallas kernel: the
-slice-sweep reformulation subsumes it (same integral, MXU-friendly
-quadrature; kernels/sweep_pallas.py is its fused form), and a per-ray
-gather march is exactly the memory pattern TPUs cannot run fast
-(scalar 8-corner gathers — measured ~0.1M rays/s via XLA).
 """
 from __future__ import annotations
 
@@ -69,14 +62,12 @@ def render_image(
     light_volume=None,
 ):
     """Render one RGBA frame (H, W, 4) from a density grid and camera."""
-    if backend == "pallas":
-        backend = "sweep"  # alias: the Pallas kernels implement "sweep"
     if backend not in ("auto", "sweep", "reference"):
         # A typo'd backend must not silently select the per-ray oracle
-        # (the ~1000x cliff the fallback warning below exists for).
+        # (the slow path the fallback warning below exists for).
         raise ValueError(
-            f"unknown backend {backend!r}: expected 'auto', 'sweep' "
-            "(alias 'pallas'), or 'reference'")
+            f"unknown backend {backend!r}: expected 'auto', 'sweep', "
+            "or 'reference'")
     if (cfg.quadrature == "sliced" and light is not None
             and light.shadow_steps > 0 and light_volume is None
             and cfg.emission):
@@ -92,14 +83,13 @@ def render_image(
             except ValueError as e:
                 if backend in ("sweep",):
                     raise
-                # Loud fallback: the gather integrator is ~2-3 orders of
-                # magnitude slower on TPU than the sweep (VERDICT r1
-                # weak item 7 — this cliff must never be silent).
+                # Loud fallback: the per-ray gather integrator is a
+                # different, slower path — this switch must never be
+                # silent.
                 from .utils.metrics import get_logger
                 get_logger().warning(
                     "no sweep axis for this camera (%s); falling back to "
-                    "the per-ray gather integrator — expect a large "
-                    "slowdown on TPU", e)
+                    "the per-ray gather integrator — expect a slowdown", e)
                 plan = None
         if plan is not None:
             if backend in ("auto", "sweep"):
@@ -169,7 +159,7 @@ def render_scene(
 
     Paths: backend "auto"/"sweep" bakes the scene onto one shared grid
     (models.scene.bake_scene — once per scene, exact for voxel-aligned
-    translations) and runs the MXU slice-sweep per frame; backend
+    translations) and runs the slice-sweep per frame; backend
     "reference" marches rays against the exact per-volume fields
     (ops/integrate.scene_sigma — arbitrary affines, no bake error)."""
     volumes = [v if isinstance(v, Volume) else Volume(v) for v in volumes]

@@ -1,6 +1,6 @@
 """Checkpoint / resume — absent in the reference (its scene is regenerated
 from noise seeds each run, TestMain.cpp:59-62; nothing is ever saved). The
-TPU equivalent (SURVEY.md section 5.4): save/restore density grid +
+equivalent here (SURVEY.md section 5.4): save/restore density grid +
 optimizer state + step counter so a preempted multi-host fit resumes, with
 deterministic seed-driven regeneration kept as the fast path.
 

@@ -1,6 +1,6 @@
 """High-resolution timing — the `Clock` equivalent (Clock.h:3-15,
 Clock.cpp:13-26: Elapsed reads, Stamp reads and restarts), plus a
-block-until-ready render timer for honest TPU measurements (XLA dispatch is
+block-until-ready render timer for honest device measurements (XLA dispatch is
 async; wall-clock without a sync measures nothing).
 """
 from __future__ import annotations
@@ -9,7 +9,7 @@ import time
 
 import jax
 
-__all__ = ["Clock", "device_timer"]
+__all__ = ["Clock", "device_timer", "compile_and_time"]
 
 
 class Clock:
@@ -42,3 +42,17 @@ def device_timer(fn, *args, warmup=1, iters=10, **kwargs):
         result = jax.block_until_ready(fn(*args, **kwargs))
     dt = (time.perf_counter() - t0) / iters
     return result, dt
+
+
+def compile_and_time(fn, *args, iters=5):
+    """Compile jax.jit(fn) for args, then time `iters` calls on the host
+    clock, each ended by block_until_ready. Returns (compiled, result,
+    compile_s, steady_s_per_call)."""
+    t0 = time.perf_counter()
+    compiled = jax.jit(fn).lower(*args).compile()
+    compile_s = time.perf_counter() - t0
+    result = jax.block_until_ready(compiled(*args))  # first run: warm-up
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        result = jax.block_until_ready(compiled(*args))
+    return compiled, result, compile_s, (time.perf_counter() - t0) / iters

@@ -3,8 +3,8 @@
 The reference logs through loguru macros with file rotation
 (Utils.h:15-30, Utils.cpp:10-42). Here: stdlib logging with an optional
 JSON-lines metrics sink recording per-step render statistics (rays/s,
-ms/frame, early-exit rate) — observability suited to batch TPU jobs rather
-than an interactive window.
+ms/frame, early-exit rate) — observability suited to batch accelerator
+jobs rather than an interactive window.
 """
 from __future__ import annotations
 

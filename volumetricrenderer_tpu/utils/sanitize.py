@@ -1,4 +1,4 @@
-"""Runtime numeric sanitizers — the TPU analogue of the reference's
+"""Runtime numeric sanitizers — the analogue of the reference's
 sanitizer builds (cmake/Sanitizers.cmake:1-43, all OFF by default; the
 Vulkan validation layers, VulkanInstance.cpp:137-139, are the runtime
 contract checker).
